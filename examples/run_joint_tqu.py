@@ -22,11 +22,11 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from gibbssampler_tpu.inference import example_dl
-    from gibbssampler_tpu.ops import NoiseModel, SkyModel
-    from gibbssampler_tpu.samplers import synfast_joint
-    from gibbssampler_tpu.schemes import JointCenteredGibbs
-    from gibbssampler_tpu.sht import make_sht
+    from gibbssampler.inference import example_dl
+    from gibbssampler.ops import NoiseModel, SkyModel
+    from gibbssampler.samplers import synfast_joint
+    from gibbssampler.schemes import JointCenteredGibbs
+    from gibbssampler.sht import make_sht
 
     lmax = args.lmax
     tt = example_dl(lmax, "tt", amp=100.0)

@@ -9,7 +9,7 @@ centered / non-centered / ASIS samplers, runs one, and pickles the chains
 
 On the reference's SLURM cluster each array task ran one chain
 (job-script.sh); here the chains are vmapped on one chip (and shard over a
-mesh with gibbssampler_tpu.parallel for pods).
+mesh with gibbssampler.parallel for pods).
 """
 
 import argparse
@@ -34,7 +34,7 @@ def main():
     ap.add_argument("--out", default="pol_run.npz")
     args = ap.parse_args()
 
-    from gibbssampler_tpu.inference import RunConfig, run_experiment
+    from gibbssampler.inference import RunConfig, run_experiment
 
     cfg = RunConfig(
         lmax=args.lmax, spin=2, scheme=args.scheme, cr_method=args.cr,

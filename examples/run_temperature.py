@@ -25,7 +25,7 @@ def main():
     ap.add_argument("--out", default="tt_run.npz")
     args = ap.parse_args()
 
-    from gibbssampler_tpu.inference import RunConfig, run_experiment
+    from gibbssampler.inference import RunConfig, run_experiment
 
     cfg = RunConfig(
         lmax=args.lmax, spin=0, grid=args.grid, scheme=args.scheme,

@@ -1,8 +1,9 @@
 """Test configuration: run on a virtual 8-device CPU mesh with float64.
 
-Tests validate numerics in float64 on CPU (the TPU path runs float32; the
+Tests validate numerics in float64 on CPU (the GPU path runs float32; the
 SHT/solver code is dtype-polymorphic).  Multi-device sharding tests use the
-8 virtual CPU devices as a stand-in for a TPU pod slice.
+8 virtual CPU devices as a stand-in for a multi-GPU host.  On-card checks
+live in chip_smoke.py (run on the GPU machine), not in this suite.
 """
 
 import os

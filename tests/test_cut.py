@@ -13,17 +13,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import variance_expansion_state, nstate
-from gibbssampler_tpu.inference import example_dl, simulate_dataset
-from gibbssampler_tpu.ops import with_cut_decomposition
-from gibbssampler_tpu.samplers import (aux_gibbs_cr, overrelax_cr, mala_cr,
+from gibbssampler.harmonics import variance_expansion_state, nstate
+from gibbssampler.inference import example_dl, simulate_dataset
+from gibbssampler.ops import with_cut_decomposition
+from gibbssampler.samplers import (aux_gibbs_cr, overrelax_cr, mala_cr,
                                        cg_cr, exact_cr)
 
 LMAX = 10
 
 
 def make_masked(spin=0, sigma2=1.0, band=0.3, seed=0, fwhm=0.05):
-    from gibbssampler_tpu.sht import gauss_legendre_grid
+    from gibbssampler.sht import gauss_legendre_grid
     grid = gauss_legendre_grid(LMAX)
     lat = np.abs(np.pi / 2 - grid.theta)
     keep = (lat > band).astype(np.float64)
@@ -72,7 +72,7 @@ def test_data_loglike_cut_exact(spin):
 
 
 def test_nc_likelihood_complement_exact():
-    from gibbssampler_tpu.samplers import make_nc_log_likelihood
+    from gibbssampler.samplers import make_nc_log_likelihood
     model, mc, fields = make_masked(spin=2, sigma2=0.5)
     bins = [np.arange(2, LMAX + 2)] * 2
     ll_pix = make_nc_log_likelihood(model, bins, all_sph=False)
@@ -158,7 +158,7 @@ def test_asis_scheme_on_cut_model():
     full grid), so only distribution-level agreement is expected; the
     exact-equality guarantees are pinned by the operator/likelihood tests
     above."""
-    from gibbssampler_tpu.schemes import ASISGibbs
+    from gibbssampler.schemes import ASISGibbs
     model, mc, fields = make_masked(spin=2, sigma2=1e-3)   # signal-dominated
     bins = np.arange(2, LMAX + 2)
     nb = len(bins) - 1
@@ -172,7 +172,7 @@ def test_asis_scheme_on_cut_model():
         jax.random.PRNGKey(11), dl0, n_iter=400, nchains=4)
     for f in range(2):
         assert np.isfinite(np.asarray(out_b["dl_chains"][f])).all()
-    from gibbssampler_tpu.diagnostics import summarize_chains
+    from gibbssampler.diagnostics import summarize_chains
     a = np.asarray(out_a["dl_chains"][0])[:, 150:]   # EE, signal-dominated
     b = np.asarray(out_b["dl_chains"][0])[:, 150:]
     sa, sb = summarize_chains(a), summarize_chains(b)
@@ -188,8 +188,8 @@ def test_nc_cls_sample_cut_matches_reference_path():
     """The rank-one fast path consumes the identical random stream and
     computes identical accept ratios, so whole MH chains must match the
     direct nc_cls_sample (complement likelihood) bit-near."""
-    from gibbssampler_tpu.samplers import make_nc_log_likelihood
-    from gibbssampler_tpu.samplers.cls_samplers import (nc_cls_sample,
+    from gibbssampler.samplers import make_nc_log_likelihood
+    from gibbssampler.samplers.cls_samplers import (nc_cls_sample,
                                                         nc_cls_sample_cut)
     model, mc, fields = make_masked(spin=2, sigma2=0.5)
     bins = [np.arange(2, LMAX + 2)] * 2
@@ -219,9 +219,9 @@ def test_nc_cls_sample_cut_matches_reference_path():
 def test_joint_cg_on_cut_model():
     """Joint TQU CG with the cut model reproduces the plain-model draw
     (qn_apply complement is exact) under a ring mask, same key."""
-    from gibbssampler_tpu.samplers import cg_joint_cr, synfast_joint
-    from gibbssampler_tpu.ops import NoiseModel, SkyModel
-    from gibbssampler_tpu.sht import make_sht
+    from gibbssampler.samplers import cg_joint_cr, synfast_joint
+    from gibbssampler.ops import NoiseModel, SkyModel
+    from gibbssampler.sht import make_sht
 
     lmax = LMAX
     sht = make_sht(lmax, dtype=jnp.float64, spin2=True)
@@ -264,9 +264,9 @@ def test_phi_engine_holey_mask_matches_direct(monkeypatch):
     which must equal the direct nc_cls_sample path bit-near over whole
     chains (fp64).  GS_PHI_CHUNK is forced tiny so several chunks and the
     cross-chunk residual handoff are exercised."""
-    from gibbssampler_tpu.samplers import cls_samplers as cs
-    from gibbssampler_tpu.schemes import ASISGibbs
-    from gibbssampler_tpu.sht import gauss_legendre_grid
+    from gibbssampler.samplers import cls_samplers as cs
+    from gibbssampler.schemes import ASISGibbs
+    from gibbssampler.sht import gauss_legendre_grid
 
     grid = gauss_legendre_grid(LMAX)
     lat = np.abs(np.pi / 2 - grid.theta)
@@ -334,7 +334,7 @@ def test_asis_fast_path_matches_direct_scheme():
     """Full ASIS chains with the rank-one MH fast path equal the direct
     nc_cls_sample path bit-near (same model, same keys) — the scheme-level
     guarantee on top of the kernel-level test above."""
-    from gibbssampler_tpu.schemes import ASISGibbs
+    from gibbssampler.schemes import ASISGibbs
     _, mc, fields = make_masked(spin=2, sigma2=0.5)
     bins = np.arange(2, LMAX + 2)
     nb = len(bins) - 1
@@ -375,8 +375,8 @@ def test_asis_fast_path_matches_direct_scheme():
 
 def make_masked_healpix(spin=2, sigma2=0.5, band_deg=20.0, seed=0,
                         fwhm=0.05, nside=8, layout="padded"):
-    from gibbssampler_tpu.sht.healpix import make_healpix_sht
-    from gibbssampler_tpu.sht.healpix_pix import galactic_band_mask
+    from gibbssampler.sht.healpix import make_healpix_sht
+    from gibbssampler.sht.healpix_pix import galactic_band_mask
     lmax = 2 * nside
     sht = make_healpix_sht(nside, lmax, dtype=jnp.float64,
                            spin2=(spin >= 2), layout=layout)
@@ -392,7 +392,7 @@ def make_masked_healpix(spin=2, sigma2=0.5, band_deg=20.0, seed=0,
 
 
 def _healpix_cut_idx(model):
-    from gibbssampler_tpu.ops.model import healpix_belt_rows
+    from gibbssampler.ops.model import healpix_belt_rows
     tau = np.asarray(model.noise.tau)
     q = np.asarray(model.noise.q_map)
     tb = tau.max(axis=1)
@@ -480,7 +480,7 @@ def test_healpix_asis_fast_path_matches_direct():
     algebra on the same cut likelihood, so fast and direct chains match
     bit-near (the omega approximation is in the likelihood itself, not in
     the fast path)."""
-    from gibbssampler_tpu.schemes import ASISGibbs
+    from gibbssampler.schemes import ASISGibbs
     _, mc, fields = make_masked_healpix(spin=2, sigma2=0.5)
     lmax = mc.lmax
     bins = np.arange(2, lmax + 2)
@@ -506,7 +506,7 @@ def test_healpix_asis_cut_posterior_matches_exact():
     """Chain-level bound on the omega bias: flagship-style ASIS on the
     HEALPix cut model vs the exact-pixel (non-cut) model — signal-dominated
     EE posteriors agree within Monte-Carlo tolerance."""
-    from gibbssampler_tpu.schemes import ASISGibbs
+    from gibbssampler.schemes import ASISGibbs
     model, mc, fields = make_masked_healpix(spin=2, sigma2=1e-3)
     lmax = mc.lmax
     bins = np.arange(2, lmax + 2)
@@ -519,7 +519,7 @@ def test_healpix_asis_cut_posterior_matches_exact():
         jax.random.PRNGKey(10), dl0, n_iter=400, nchains=4)
     out_b = ASISGibbs(mc, [bins] * 2, [blocks] * 2, sig, **kw).run(
         jax.random.PRNGKey(11), dl0, n_iter=400, nchains=4)
-    from gibbssampler_tpu.diagnostics import summarize_chains
+    from gibbssampler.diagnostics import summarize_chains
     a = np.asarray(out_a["dl_chains"][0])[:, 150:]
     b = np.asarray(out_b["dl_chains"][0])[:, 150:]
     sa, sb = summarize_chains(a), summarize_chains(b)
@@ -539,7 +539,7 @@ def var_of_lmax(model, fields, lmax):
 def test_cut_exact_with_apodized_mask():
     """The complement identity holds for any tau <= tau_bar, including
     apodized (fractional) masks — exactness does not require a binary cut."""
-    from gibbssampler_tpu.sht import gauss_legendre_grid
+    from gibbssampler.sht import gauss_legendre_grid
     grid = gauss_legendre_grid(LMAX)
     lat = np.abs(np.pi / 2 - grid.theta)
     x = np.clip((lat - 0.25) / 0.25, 0.0, 1.0)
@@ -621,8 +621,8 @@ def test_ring_dot_weights_nyquist():
     """At nphi = 2 lmax (the HEALPix belt case) the Nyquist column m = lmax
     carries pw_cos = nphi, pw_sin = 0, keeping the Parseval dot product
     exact."""
-    from gibbssampler_tpu.sht.grids import SphereGrid
-    from gibbssampler_tpu.sht.transform import SHT
+    from gibbssampler.sht.grids import SphereGrid
+    from gibbssampler.sht.transform import SHT
     lmax = 8
     nphi = 2 * lmax
     theta = np.array([1.2, 1.5, 1.9])
@@ -630,7 +630,7 @@ def test_ring_dot_weights_nyquist():
                    phi0=np.array([0.0, 0.1, 0.0]))
     sht = SHT(g, lmax, dtype=jnp.float64, spin2=True, allow_aliasing=True)
     rng = np.random.default_rng(1)
-    from gibbssampler_tpu.harmonics import nstate as _nstate
+    from gibbssampler.harmonics import nstate as _nstate
     e = jnp.asarray(rng.standard_normal(_nstate(lmax)))
     b = jnp.asarray(rng.standard_normal(_nstate(lmax)))
     j_idx = np.arange(2, lmax + 1)
@@ -654,8 +654,8 @@ def test_mdomain_sweep_matches_phi_sweep(spin):
     """nc_cls_sample_cut's m-domain sweep consumes the identical random
     stream and computes the same accept ratios as the phi-domain rank-one
     path, so whole chains must match bit-near (fp64)."""
-    from gibbssampler_tpu.samplers import cls_samplers as cs
-    from gibbssampler_tpu.sht import gauss_legendre_grid
+    from gibbssampler.samplers import cls_samplers as cs
+    from gibbssampler.sht import gauss_legendre_grid
     grid = gauss_legendre_grid(LMAX)
     lat = np.abs(np.pi / 2 - grid.theta)
     mask = np.broadcast_to((lat > 0.3)[:, None],
@@ -708,7 +708,7 @@ def test_mdomain_sweep_matches_phi_sweep_healpix(spin):
     handling and the table engine's rotation + Nyquist-column path must
     reproduce the phi-domain rank-one path bit-near over whole chains
     (fp64) — the production HEALPix paths these engines exist for."""
-    from gibbssampler_tpu.samplers import cls_samplers as cs
+    from gibbssampler.samplers import cls_samplers as cs
     model, mc, fields = make_masked_healpix(spin=spin, sigma2=0.5)
     lmax = model.lmax
     assert cs._mdomain_eligible(mc)
@@ -744,8 +744,8 @@ def test_mdomain_sweep_matches_phi_sweep_healpix(spin):
 def test_mdomain_singles_spanning_fields_spin3():
     """Singles spanning two fields (T and B) exercise the field-pure
     chunking and the cross-field residual handoff through (Rc, Rs)."""
-    from gibbssampler_tpu.samplers import cls_samplers as cs
-    from gibbssampler_tpu.sht import gauss_legendre_grid
+    from gibbssampler.samplers import cls_samplers as cs
+    from gibbssampler.sht import gauss_legendre_grid
     grid = gauss_legendre_grid(LMAX)
     lat = np.abs(np.pi / 2 - grid.theta)
     mask = np.broadcast_to((lat > 0.3)[:, None],
@@ -780,7 +780,7 @@ def test_tdomain_engine_matches_coefficient_engine():
     """The table-domain singles engine (ell-pair weight tables, no per-bin
     (ring, m) planes) computes the same chains as the coefficient m-domain
     engine pinned with mdomain="m"."""
-    from gibbssampler_tpu.samplers import cls_samplers as cs
+    from gibbssampler.samplers import cls_samplers as cs
     model, mc, fields = make_masked(spin=2, sigma2=0.5)
     assert mc.cut_w_uniform and mc.cut_w_equal_fields
     assert not mc.cut_sht.has_phase

@@ -4,9 +4,9 @@ reference: config.py:126-128)."""
 import numpy as np
 import pytest
 
-from gibbssampler_tpu.inference.fits_io import (
+from gibbssampler.inference.fits_io import (
     read_healpix_map, write_healpix_map, nest2ring, ring2nest)
-from gibbssampler_tpu.sht.healpix_pix import (ang2pix_ring, pix2ang_ring,
+from gibbssampler.sht.healpix_pix import (ang2pix_ring, pix2ang_ring,
                                               ud_grade, galactic_band_mask)
 
 
@@ -54,8 +54,8 @@ def test_mask_pipeline_via_fits(tmp_path):
     """End-to-end reference mask flow: read FITS mask -> ud_grade ->
     NoiseModel (reference: config.py:126-128 + ConstrainedRealization.py:36)."""
     import jax.numpy as jnp
-    from gibbssampler_tpu.ops import NoiseModel
-    from gibbssampler_tpu.sht.healpix import healpix_geometry
+    from gibbssampler.ops import NoiseModel
+    from gibbssampler.sht.healpix import healpix_geometry
 
     m16 = galactic_band_mask(16, 20.0)
     path = tmp_path / "mask.fits"

@@ -1,6 +1,6 @@
 """Grid-packed state layout: equivalence with the reference flat packing.
 
-The grid-packed layout (harmonics.gridstate) is the TPU hot-path format;
+The grid-packed layout (harmonics.gridstate) is the hot-path format;
 these tests pin its exact correspondence to the reference-compatible ragged
 packing and the adjoint discipline of the state-native SHT methods.
 """
@@ -9,13 +9,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gibbssampler_tpu.harmonics import (
+from gibbssampler.harmonics import (
     nflat, nstate, flat_to_state, state_to_flat,
     variance_expansion, variance_expansion_state,
     almxfl, almxfl_state, alm2cl, alm2cl_state, ell_mask_state,
     expand_cl_state, index_maps,
 )
-from gibbssampler_tpu.sht import make_sht
+from gibbssampler.sht import make_sht
 
 LMAX = 24
 

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import (
+from gibbssampler.harmonics import (
     index_maps, nflat, nhealpy,
     flat_to_grid, grid_to_flat, flat_to_healpy, healpy_to_flat,
     dl_to_cl, cl_to_dl, variance_expansion, variance_expansion_matrix,

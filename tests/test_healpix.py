@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import nflat, flat_to_healpy, index_maps
-from gibbssampler_tpu.sht.healpix import healpix_geometry, make_healpix_sht
+from gibbssampler.harmonics import nflat, flat_to_healpy, index_maps
+from gibbssampler.sht.healpix import healpix_geometry, make_healpix_sht
 
 NSIDE = 8
 LMAX = 2 * NSIDE
@@ -127,10 +127,10 @@ def test_gibbs_on_healpix_grid():
     """End-to-end: centered Gibbs runs on the HEALPix grid through the same
     SkyModel/scheme machinery (reference parity configuration: uniform
     pixels, q = 1, CG constrained realization)."""
-    from gibbssampler_tpu.inference import example_dl
-    from gibbssampler_tpu.ops import NoiseModel, SkyModel
-    from gibbssampler_tpu.schemes import CenteredGibbs
-    from gibbssampler_tpu.harmonics import variance_expansion_state, nstate
+    from gibbssampler.inference import example_dl
+    from gibbssampler.ops import NoiseModel, SkyModel
+    from gibbssampler.schemes import CenteredGibbs
+    from gibbssampler.harmonics import variance_expansion_state, nstate
 
     sht = make_healpix_sht(NSIDE, LMAX, dtype=jnp.float64, spin2=False)
     dl = example_dl(LMAX, amp=10.0)
@@ -155,10 +155,10 @@ def test_gibbs_on_healpix_grid():
 
 def test_healpix_aux_gibbs_runs():
     """Aux-variable CR on HEALPix (q = 1): one sweep keeps shapes/finiteness."""
-    from gibbssampler_tpu.inference import example_dl
-    from gibbssampler_tpu.ops import NoiseModel, SkyModel
-    from gibbssampler_tpu.samplers import aux_gibbs_cr
-    from gibbssampler_tpu.harmonics import variance_expansion_state, nstate
+    from gibbssampler.inference import example_dl
+    from gibbssampler.ops import NoiseModel, SkyModel
+    from gibbssampler.samplers import aux_gibbs_cr
+    from gibbssampler.harmonics import variance_expansion_state, nstate
 
     sht = make_healpix_sht(NSIDE, LMAX, dtype=jnp.float64, spin2=False)
     dl = example_dl(LMAX, amp=10.0)
@@ -177,7 +177,7 @@ def test_healpix_aux_gibbs_runs():
 
 def test_ang2pix_pix2ang_roundtrip():
     """ang2pix(center of p) == p for every pixel — pins the RING formulas."""
-    from gibbssampler_tpu.sht.healpix_pix import ang2pix_ring, pix2ang_ring
+    from gibbssampler.sht.healpix_pix import ang2pix_ring, pix2ang_ring
     for nside in (1, 2, 4, 8, 16):
         npix = 12 * nside * nside
         th, ph = pix2ang_ring(nside, np.arange(npix))
@@ -186,7 +186,7 @@ def test_ang2pix_pix2ang_roundtrip():
 
 
 def test_ud_grade_mask():
-    from gibbssampler_tpu.sht.healpix_pix import ud_grade, galactic_band_mask
+    from gibbssampler.sht.healpix_pix import ud_grade, galactic_band_mask
     m = galactic_band_mask(16, 15.0)
     f = float(m.mean())
     assert 0.6 < f < 0.85      # ~f_sky of a 15-deg cut

@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import alm2cl_state, ell_mask_state, state_masks
-from gibbssampler_tpu.ops import NoiseModel, SkyModel
-from gibbssampler_tpu.samplers import (
+from gibbssampler.harmonics import alm2cl_state, ell_mask_state, state_masks
+from gibbssampler.ops import NoiseModel, SkyModel
+from gibbssampler.samplers import (
     exact_joint_cr, synfast_joint, invwishart_cls_sample,
 )
-from gibbssampler_tpu.schemes import JointCenteredGibbs
-from gibbssampler_tpu.sht import make_sht
+from gibbssampler.schemes import JointCenteredGibbs
+from gibbssampler.sht import make_sht
 
 LMAX = 10
 K = 3
@@ -72,7 +72,7 @@ def test_exact_joint_cr_moments():
     draws = jax.vmap(lambda k: exact_joint_cr(k, model, jnp.asarray(C),
                                               bt)[0])(keys)
     # analytic: P = C^-1 + diag(g); mean = P^-1 b per slot
-    from gibbssampler_tpu.samplers.joint import expand_cl_blocks
+    from gibbssampler.samplers.joint import expand_cl_blocks
     cov = np.asarray(expand_cl_blocks(jnp.asarray(C), LMAX))
     g = np.asarray(model.harmonic_noise_diag())
     active = ell_mask_state(LMAX, lmin=2) > 0
@@ -97,7 +97,7 @@ def test_invwishart_conjugacy():
     draws = jax.vmap(lambda k: invwishart_cls_sample(k, s, LMAX))(keys)
     mean_draws = np.asarray(draws).mean(axis=0)
     # scatter matrix per ell
-    from gibbssampler_tpu.samplers.cls_samplers import invwishart_cls_sample as _
+    from gibbssampler.samplers.cls_samplers import invwishart_cls_sample as _
     l = 8
     L = LMAX + 1
     ell_state = np.broadcast_to(np.arange(L), (2, L, L)).reshape(-1)
@@ -164,8 +164,8 @@ def test_joint_cg_matches_dense_solve():
     """Block-preconditioned joint CG == dense solve of Q x = b on the active
     subspace, under a ring mask (the masked k x k generalization of
     /root/reference/CenteredGibbs.py:448-491)."""
-    from gibbssampler_tpu.samplers.joint import joint_block_ops
-    from gibbssampler_tpu.ops.cg import cg_solve
+    from gibbssampler.samplers.joint import joint_block_ops
+    from gibbssampler.ops.cg import cg_solve
 
     model, C = make_masked_joint_model()
     apply_cinv, apply_sqrt, apply_pinv, active = joint_block_ops(
@@ -205,7 +205,7 @@ def test_joint_cg_matches_dense_solve():
     # the sqrt factor really is a root of C^-1
     xi = jnp.asarray(rng.normal(size=(K, nst)))
     w = apply_sqrt(xi)
-    from gibbssampler_tpu.samplers.joint import expand_cl_blocks
+    from gibbssampler.samplers.joint import expand_cl_blocks
     cov = np.asarray(expand_cl_blocks(jnp.asarray(C), LMAX))
     slot = slots[40]
     cinv_slot = np.linalg.inv(cov[slot])
@@ -231,13 +231,13 @@ def test_joint_scheme_cg_masked_runs():
     assert np.isfinite(chain).all()
 
     # full sky: cg draw moments match the exact sampler's analytic moments
-    from gibbssampler_tpu.samplers import cg_joint_cr
+    from gibbssampler.samplers import cg_joint_cr
     model_fs, C_fs, _ = make_joint_model(noise_sigma2=0.5)
     bt = model_fs.bt_ninv_d()
     keys = jax.random.split(jax.random.PRNGKey(12), 800)
     draws = jax.vmap(lambda k: cg_joint_cr(k, model_fs, jnp.asarray(C_fs),
                                            bt, tol=1e-9)[0])(keys)
-    from gibbssampler_tpu.samplers.joint import expand_cl_blocks
+    from gibbssampler.samplers.joint import expand_cl_blocks
     cov = np.asarray(expand_cl_blocks(jnp.asarray(C_fs), LMAX))
     g = np.asarray(model_fs.harmonic_noise_diag())
     active = ell_mask_state(LMAX, lmin=2) > 0

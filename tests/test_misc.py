@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gibbssampler_tpu.harmonics import nstate, ell_mask_state
-from gibbssampler_tpu.inference import example_dl, simulate_dataset
-from gibbssampler_tpu.samplers import whiten, recenter
+from gibbssampler.harmonics import nstate, ell_mask_state
+from gibbssampler.inference import example_dl, simulate_dataset
+from gibbssampler.samplers import whiten, recenter
 
 
 def test_whiten_recenter_roundtrip():
@@ -43,7 +43,7 @@ def test_simulate_spin3():
 
 
 def test_esjd_and_summary():
-    from gibbssampler_tpu.diagnostics import esjd, summarize_chains
+    from gibbssampler.diagnostics import esjd, summarize_chains
     rng = np.random.default_rng(0)
     chains = rng.normal(size=(4, 300, 3))
     s = summarize_chains(chains)

@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import (nstate, variance_expansion_state,
+from gibbssampler.harmonics import (nstate, variance_expansion_state,
                                         unfold_bins)
-from gibbssampler_tpu.inference import example_dl, simulate_dataset
-from gibbssampler_tpu.ops import cg_solve
-from gibbssampler_tpu.samplers import (
+from gibbssampler.inference import example_dl, simulate_dataset
+from gibbssampler.ops import cg_solve
+from gibbssampler.samplers import (
     exact_cr, cg_cr, rjpo_cr, aux_gibbs_cr, overrelax_cr, mala_cr,
     cr_precond,
 )
@@ -91,7 +91,7 @@ def test_cg_mixed_precision_matches_dense_solve():
     """Mixed-precision CG (fp32 mat-vecs + fp64 vectors/recurrences +
     periodic true-residual replacement, ops/cg.py apply_dtype) must reach
     the same solution as the dense solve on a masked sky — the production
-    remedy for the measured fp32 stagnation at lmax=512 (docs/PERF.md;
+    remedy for the measured fp32 stagnation at lmax=512 (PERF.md;
     reference workhorse path: ConstrainedRealization.py:40-41)."""
     mask = None
     model, _, fields = make_model(spin=2)
@@ -293,7 +293,7 @@ def test_mala_acceptance_and_invariance():
 def test_pcn_acceptance_and_invariance():
     """pCN with small beta accepts often and preserves the CR conditional
     (the reference only eyeballed pCN on a 1-d toy, testCN.py:22-41)."""
-    from gibbssampler_tpu.samplers import pcn_cr
+    from gibbssampler.samplers import pcn_cr
     # weak likelihood (SNR << 1): pCN's prior-reversible proposal is only
     # viable in this regime — at high SNR its acceptance decays
     # exponentially with dimension (why the portfolio also has MALA/aux)
@@ -308,7 +308,7 @@ def test_pcn_acceptance_and_invariance():
                                          tol=1e-10)[0])(keys)
     keys2 = jax.random.split(jax.random.PRNGKey(21), nch)
     moved, infos = jax.vmap(lambda k, s: __import__(
-        "gibbssampler_tpu.samplers", fromlist=["pcn_cr"]).pcn_cr(
+        "gibbssampler.samplers", fromlist=["pcn_cr"]).pcn_cr(
         k, model_m, var, bt, s, beta=0.05))(keys2, ref_draws)
     acc = float(jnp.mean(infos.accept))
     assert acc > 0.2, acc
@@ -326,17 +326,17 @@ def test_cg_production_mask_iteration_bound():
     the lockstep solve converges to the reference's tolerances well inside
     its 4000-iteration budget (reference descriptor:
     ConstrainedRealization.py:40-41).  This CPU-sized case pins the
-    preconditioner's quality in CI; the production-scale numbers (lmax=512,
-    several band widths, both tolerances, measured on the TPU via
-    tools/cg_scale.py) are recorded in docs/PERF.md's masked-CG table."""
-    from gibbssampler_tpu.inference import example_dl, simulate_dataset
-    from gibbssampler_tpu.ops import with_cut_decomposition
-    from gibbssampler_tpu.ops.cg import cg_solve
-    from gibbssampler_tpu.samplers.cr import (cr_precond, fluctuated_rhs,
+    preconditioner's quality in CI; the production-scale iteration counts
+    (lmax=512, several band widths, both tolerances, tools/cg_scale.py)
+    are summarized in PERF.md."""
+    from gibbssampler.inference import example_dl, simulate_dataset
+    from gibbssampler.ops import with_cut_decomposition
+    from gibbssampler.ops.cg import cg_solve
+    from gibbssampler.samplers.cr import (cr_precond, fluctuated_rhs,
                                               _q_op, _safe_inv, _active)
-    from gibbssampler_tpu.harmonics import variance_expansion_state
-    from gibbssampler_tpu.harmonics.spectra import unfold_bins
-    from gibbssampler_tpu.sht import gauss_legendre_grid
+    from gibbssampler.harmonics import variance_expansion_state
+    from gibbssampler.harmonics.spectra import unfold_bins
+    from gibbssampler.sht import gauss_legendre_grid
 
     lmax = 128
     grid = gauss_legendre_grid(lmax)

@@ -1,16 +1,16 @@
-"""Multi-device tests on the virtual 8-device CPU mesh (stand-in for a TPU
-pod slice; SURVEY.md 4 'Implication for the rebuild')."""
+"""Multi-device tests on the virtual 8-device CPU mesh (stand-in for a
+multi-GPU host; SURVEY.md 4 'Implication for the rebuild')."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import nflat
-from gibbssampler_tpu.inference import example_dl, simulate_dataset
-from gibbssampler_tpu.ops import SkyModel
-from gibbssampler_tpu.parallel import make_mesh, shard_sht, sharded_run
-from gibbssampler_tpu.schemes import CenteredGibbs
+from gibbssampler.harmonics import nflat
+from gibbssampler.inference import example_dl, simulate_dataset
+from gibbssampler.ops import SkyModel
+from gibbssampler.parallel import make_mesh, shard_sht, sharded_run
+from gibbssampler.schemes import CenteredGibbs
 
 LMAX = 8
 
@@ -37,7 +37,7 @@ def test_sharded_run_matches_unsharded():
 
 def test_m_sharded_sht_matches_single_device():
     mesh = make_mesh(n_chains=2, n_m=4)
-    from gibbssampler_tpu.sht import make_sht
+    from gibbssampler.sht import make_sht
     sht = make_sht(LMAX, dtype=jnp.float64)
     msht = shard_sht(sht, mesh)
     key = jax.random.PRNGKey(2)
@@ -77,9 +77,9 @@ def test_adapt_segments_tunes_sigmas():
     """Warmup adaptation drives the proposal scales toward the pooled
     posterior spread (replacing the reference's offline two-phase tuning,
     config.py:136-225)."""
-    from gibbssampler_tpu.inference import example_dl, simulate_dataset
-    from gibbssampler_tpu.parallel import adapt_segments
-    from gibbssampler_tpu.schemes import NonCenteredGibbs
+    from gibbssampler.inference import example_dl, simulate_dataset
+    from gibbssampler.parallel import adapt_segments
+    from gibbssampler.schemes import NonCenteredGibbs
 
     lmax = 10
     dl = example_dl(lmax, amp=10.0)
@@ -105,8 +105,8 @@ def test_adapt_segments_tunes_sigmas():
 
 
 def test_device_rhat_matches_numpy():
-    from gibbssampler_tpu.parallel import split_rhat_device
-    from gibbssampler_tpu.diagnostics import split_rhat
+    from gibbssampler.parallel import split_rhat_device
+    from gibbssampler.diagnostics import split_rhat
     rng = np.random.default_rng(3)
     chains = rng.normal(size=(4, 400, 2))
     chains[2] += 0.5   # introduce between-chain spread
@@ -118,7 +118,7 @@ def test_device_rhat_matches_numpy():
 
 def test_device_rhat_sharded():
     """Pooled R-hat inside a jit over a sharded chain axis."""
-    from gibbssampler_tpu.parallel import make_mesh, chain_sharding, \
+    from gibbssampler.parallel import make_mesh, chain_sharding, \
         split_rhat_device
     mesh = make_mesh(n_chains=8, n_m=1)
     rng = np.random.default_rng(4)
@@ -168,9 +168,9 @@ def test_sharded_cut_fastpath_matches_unsharded():
     """Flagship configuration (cut decomposition + rank-one blocked MH +
     overrelaxed aux CR) under chain+m sharding reproduces the single-device
     chains with identical keys."""
-    from gibbssampler_tpu.ops import with_cut_decomposition
-    from gibbssampler_tpu.schemes import ASISGibbs
-    from gibbssampler_tpu.sht import gauss_legendre_grid
+    from gibbssampler.ops import with_cut_decomposition
+    from gibbssampler.schemes import ASISGibbs
+    from gibbssampler.sht import gauss_legendre_grid
 
     lmax = 9
     grid = gauss_legendre_grid(lmax)

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.inference import RunConfig, run_experiment, load_checkpoint
+from gibbssampler.inference import RunConfig, run_experiment, load_checkpoint
 
 
 def test_run_experiment_and_resume(tmp_path):
@@ -34,8 +34,8 @@ def test_run_experiment_and_resume(tmp_path):
     # pre-seed the checkpoint from the 10-iteration run
     os.rename(out2, out2 + ".bak")
     z10 = np.load(out2 + ".bak")
-    from gibbssampler_tpu.inference import save_checkpoint
-    from gibbssampler_tpu.schemes import GibbsState
+    from gibbssampler.inference import save_checkpoint
+    from gibbssampler.schemes import GibbsState
     import jax
     state = GibbsState(
         s=jnp.zeros((2, 1, 338)),
@@ -61,7 +61,7 @@ def test_run_experiment_asis_allsph(tmp_path):
 
 
 def test_load_cls(tmp_path):
-    from gibbssampler_tpu.inference import load_cls
+    from gibbssampler.inference import load_cls
     # npy layout
     arr = np.stack([np.arange(20.0), np.ones(20), np.zeros(20), np.ones(20)])
     p = str(tmp_path / "cls.npy"); np.save(p, arr)
@@ -94,9 +94,9 @@ def test_run_experiment_mask_fits(tmp_path):
     """Real-mask pipeline end-to-end (reference: config.py:22-28,126-128):
     a HEALPix mask written to FITS at a different nside is read back,
     ud_graded to the analysis nside, and drives the masked run."""
-    from gibbssampler_tpu.inference.fits_io import write_healpix_map
-    from gibbssampler_tpu.inference.runner import _build
-    from gibbssampler_tpu.sht.healpix_pix import galactic_band_mask
+    from gibbssampler.inference.fits_io import write_healpix_map
+    from gibbssampler.inference.runner import _build
+    from gibbssampler.sht.healpix_pix import galactic_band_mask
     fits = str(tmp_path / "mask.fits")
     write_healpix_map(fits, galactic_band_mask(16, 15.0), ordering="RING")
     out = str(tmp_path / "mf.npz")
@@ -143,8 +143,8 @@ def test_run_experiment_joint_crash_resume(tmp_path):
     """Joint runs resume from a mid-run checkpoint exactly like the scalar
     schemes (the scalar path's crash-resume contract)."""
     import jax
-    from gibbssampler_tpu.inference import save_checkpoint
-    from gibbssampler_tpu.schemes.joint_scheme import JointState
+    from gibbssampler.inference import save_checkpoint
+    from gibbssampler.schemes.joint_scheme import JointState
 
     out = str(tmp_path / "jr.npz")
     cfg = RunConfig(lmax=10, spin=3, scheme="joint", n_iter=24, nchains=2,
@@ -216,7 +216,7 @@ def test_runner_step_phase_times(tmp_path):
 def test_analytic_proposal_sigma_formula():
     """Pins the closed-form heuristic against a direct per-ell computation
     (reference: config.py:119-134)."""
-    from gibbssampler_tpu.parallel.adapt import analytic_proposal_sigma
+    from gibbssampler.parallel.adapt import analytic_proposal_sigma
     lmax = 16
     bl = np.exp(-0.001 * np.arange(lmax + 1) ** 2)
     omega, n = 4 * np.pi / (12 * 64), 0.04
@@ -235,7 +235,7 @@ def test_preliminary_run_proposal_reload(tmp_path):
     """Two-phase workflow round trip (reference: config.py:136-225):
     run a preliminary experiment, pool its saved chains into proposal
     sigmas, feed them to a second run via RunConfig.proposal_from."""
-    from gibbssampler_tpu.parallel import proposal_sigmas_from_results
+    from gibbssampler.parallel import proposal_sigmas_from_results
     out1 = str(tmp_path / "prelim.npz")
     # noise-dominated regime (the regime the pooled-variance proposal rule
     # is built for — the reference tunes the high-l blocks this way): at

@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import alm2cl, dl_to_cl_factor
-from gibbssampler_tpu.inference import example_dl, simulate_dataset
-from gibbssampler_tpu.schemes import (
+from gibbssampler.harmonics import alm2cl, dl_to_cl_factor
+from gibbssampler.inference import example_dl, simulate_dataset
+from gibbssampler.schemes import (
     CenteredGibbs, NonCenteredGibbs, ASISGibbs, PNCPGibbs,
 )
 
@@ -95,7 +95,7 @@ def _nc_setup(model):
     # the non-centered conditional is noise-limited: Fisher width
     # sigma_D ~ 2 D sqrt(n_h / C) / sqrt(2l+1)
     d_alm = model.sht.analysis_state(model.d[0])
-    from gibbssampler_tpu.harmonics import alm2cl_state
+    from gibbssampler.harmonics import alm2cl_state
     shat = np.asarray(alm2cl_state(d_alm, LMAX))
     noise_h = 1.0 / float(model.noise.harmonic_white_level()[0])
     fac = np.asarray(dl_to_cl_factor(LMAX, jnp.float64))

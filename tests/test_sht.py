@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import nflat, alm2cl, flat_to_healpy
-from gibbssampler_tpu.sht import make_sht, gauss_legendre_grid
-from gibbssampler_tpu.sht.legendre import (
+from gibbssampler.harmonics import nflat, alm2cl, flat_to_healpy
+from gibbssampler.sht import make_sht, gauss_legendre_grid
+from gibbssampler.sht.legendre import (
     legendre_table, wigner_d_table, spin2_lambda_tables,
 )
 
@@ -87,7 +87,7 @@ def test_roundtrip_spin2(sht):
     key = jax.random.PRNGKey(1)
     e, b = jax.random.normal(key, (2, nflat(LMAX)))
     # monopole/dipole of spin-2 fields do not exist; zero l<2 slots
-    from gibbssampler_tpu.harmonics import index_maps
+    from gibbssampler.harmonics import index_maps
     mask = jnp.asarray(index_maps(LMAX).ell_of >= 2)
     e, b = e * mask, b * mask
     q, u = sht.synthesis_spin2(e, b)
@@ -109,7 +109,7 @@ def test_adjointness_spin0(sht):
 def test_adjointness_spin2(sht):
     key = jax.random.PRNGKey(3)
     ke, kb, kq, ku = jax.random.split(key, 4)
-    from gibbssampler_tpu.harmonics import index_maps
+    from gibbssampler.harmonics import index_maps
     mask = jnp.asarray(index_maps(LMAX).ell_of >= 2)
     e = jax.random.normal(ke, (nflat(LMAX),)) * mask
     b = jax.random.normal(kb, (nflat(LMAX),)) * mask
@@ -175,16 +175,19 @@ def test_spin2_pure_e_analytic(sht):
     np.testing.assert_allclose(np.asarray(u), 0.0, atol=1e-12)
 
 
-def test_ct_mode_matches_matmul():
-    """Mixed-radix ('ct') azimuthal path must agree with the direct DFT
-    matmuls on every public transform (synthesis/analysis, spin 0 and 2)."""
-    from gibbssampler_tpu.sht.transform import SHT
+@pytest.mark.parametrize("mode", ["ct", "fft"])
+def test_ct_mode_matches_matmul(mode):
+    """The mixed-radix ('ct') and complex-FFT ('fft') azimuthal paths must
+    agree with the direct DFT matmuls on every public transform
+    (synthesis/analysis, spin 0 and 2)."""
+    from gibbssampler.sht.transform import SHT
 
     lmax = 64  # GL nphi=130=13*10 admits a useful factorization
     g = gauss_legendre_grid(lmax)
     s0 = SHT(g, lmax, spin2=True, fft_mode="matmul", dtype=jnp.float64)
-    s1 = SHT(g, lmax, spin2=True, fft_mode="ct", dtype=jnp.float64)
-    assert s1.fft_mode == "ct" and s1._ct is not None
+    s1 = SHT(g, lmax, spin2=True, fft_mode=mode, dtype=jnp.float64)
+    assert s1.fft_mode == mode
+    assert (s1._ct is not None) == (mode == "ct")
     rng = np.random.default_rng(0)
     alm = jnp.asarray(rng.standard_normal((nflat(lmax),)))
     m0, m1 = s0.synthesis(alm), s1.synthesis(alm)
@@ -208,7 +211,7 @@ def test_ct_mode_matches_matmul():
 
 def test_ct_mode_fallback_small():
     """No profitable factorization at tiny lmax -> silently fall back."""
-    from gibbssampler_tpu.sht.transform import SHT
+    from gibbssampler.sht.transform import SHT
 
     g = gauss_legendre_grid(8)
     s = SHT(g, 8, fft_mode="ct")
@@ -220,7 +223,7 @@ def test_ring_split_matches_dense():
     symmetric grids) must agree with the dense contraction on every public
     transform, for both even and odd ring counts (odd = self-paired
     equator ring)."""
-    from gibbssampler_tpu.sht.transform import SHT
+    from gibbssampler.sht.transform import SHT
 
     rng = np.random.default_rng(3)
     for lmax, nrings in [(16, None), (16, 18), (33, None)]:

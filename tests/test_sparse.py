@@ -16,17 +16,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gibbssampler_tpu.harmonics import variance_expansion_state
-from gibbssampler_tpu.harmonics.gridstate import expand_cl_state
-from gibbssampler_tpu.harmonics.spectra import unfold_bins
-from gibbssampler_tpu.inference import example_dl, simulate_dataset
-from gibbssampler_tpu.ops import with_cut_decomposition
-from gibbssampler_tpu.samplers import (aux_gibbs_cr, overrelax_cr, mala_cr,
+from gibbssampler.harmonics import variance_expansion_state
+from gibbssampler.harmonics.gridstate import expand_cl_state
+from gibbssampler.harmonics.spectra import unfold_bins
+from gibbssampler.inference import example_dl, simulate_dataset
+from gibbssampler.ops import with_cut_decomposition
+from gibbssampler.samplers import (aux_gibbs_cr, overrelax_cr, mala_cr,
                                        exact_cr, cg_cr,
                                        make_nc_log_likelihood)
-from gibbssampler_tpu.samplers.cls_samplers import (nc_cls_sample,
+from gibbssampler.samplers.cls_samplers import (nc_cls_sample,
                                                     nc_cls_sample_cut)
-from gibbssampler_tpu.sht import (PointSHT, gauss_legendre_grid, make_sht)
+from gibbssampler.sht import (PointSHT, gauss_legendre_grid, make_sht)
 
 LMAX = 16
 
@@ -98,7 +98,7 @@ def test_point_sht_matches_grid():
 
 
 def model_nstate():
-    from gibbssampler_tpu.harmonics import nstate
+    from gibbssampler.harmonics import nstate
     return nstate(LMAX)
 
 
@@ -299,7 +299,7 @@ def test_pncp_per_field_lcut_fast_path_matches_direct():
     split): the fast path's per-field identity re-centering reproduces
     the direct likelihood path bit-near.  This is the production PNCP
     configuration (EE signal-dominated everywhere, BB split; measured
-    per-bin ESS, docs/PERF.md round 5)."""
+    per-bin ESS, PERF.md §6)."""
     model, mc, fields = make_holey(spin=2)
     bins, _, sig, dl0, s_nc = _mh_setup(mc, model, fields)
     nb = LMAX - 1
@@ -338,7 +338,7 @@ def test_pncp_per_field_lcut_fast_path_matches_direct():
 def test_pncp_scheme_fast_path_runs():
     """PNCPGibbs picks the cut fast path on a sparse model and produces
     finite chains with mixing in both segments."""
-    from gibbssampler_tpu.schemes import PNCPGibbs
+    from gibbssampler.schemes import PNCPGibbs
     model, mc, fields = make_holey(spin=2, sigma2=1e-2)
     bins = np.arange(2, LMAX + 2)
     nb = len(bins) - 1
@@ -363,8 +363,8 @@ def test_pncp_scheme_fast_path_runs():
 # ---------------------------------------------------------------------------
 
 def make_holey_healpix(seed=0, sigma2=0.5, layout="padded"):
-    from gibbssampler_tpu.sht.healpix import make_healpix_sht
-    from gibbssampler_tpu.sht.healpix_pix import galactic_band_mask
+    from gibbssampler.sht.healpix import make_healpix_sht
+    from gibbssampler.sht.healpix_pix import galactic_band_mask
     nside = 8
     lmax = 2 * nside
     sht = make_healpix_sht(nside, lmax, dtype=jnp.float64, spin2=True,

@@ -3,7 +3,7 @@
 Every performance figure in README.md must carry an inline annotation
 binding it to a committed measurement artifact:
 
-    **24.83 ESS/s** <!--chk:BENCH_r04.json#value-->
+    **24.83 ESS/s** <!--chk:results/bench.json#value-->
 
 The annotation names a JSON file (repo-relative) and a dotted path into
 it; the checker extracts the LAST number before the marker on the same

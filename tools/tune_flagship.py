@@ -27,10 +27,6 @@ os.environ.setdefault("BENCH_SCHEME", "asis")
 # tuned_proposals.json (e.g. tuned under a different CR method) can start
 # segment 0 far outside the acceptance window
 os.environ.setdefault("BENCH_TUNED", "0")
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.expanduser("~/.cache/gibbssampler_tpu/jaxcache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -58,6 +54,8 @@ def main():
     import bench
     import jax
     import jax.numpy as jnp
+    from gibbssampler.utils import use_compile_cache
+    use_compile_cache()
 
     assert bench.SCHEME in ("asis", "pncp"), \
         "tuning targets the MH-bearing bench schemes (asis / pncp)"
